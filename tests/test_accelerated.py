@@ -1,4 +1,4 @@
-"""VorbisReader(accelerated=True): TPU-batch-backed streaming surface."""
+"""VorbisReader(accelerated=True): device-batch-backed streaming surface."""
 
 import numpy as np
 import pytest

@@ -12,10 +12,10 @@ from vorbispizza_tpu.models.pipeline import decode_file_batch
 from vorbispizza_tpu.reader import VorbisReader
 from vorbispizza_tpu.setup.mapping import inverse_couple
 
-# On TPU hardware the batch pipeline measures <=4.2e-7 vs the float64 anchor
-# (inside the 1e-6 BASELINE budget). The CPU test backend's f32 dot
+# On the GPU the batch pipeline is held to the 1e-6 BASELINE budget vs the
+# float64 anchor (chip_smoke.py, bench.py). The CPU test backend's f32 dot
 # accumulation is slightly noisier (~1.01e-6 worst sample on 3test), so the
-# CI gate allows 2e-6 here; bench.py asserts the real budget on device.
+# CI gate allows 2e-6 here.
 TOL = 2e-6
 
 

@@ -1,4 +1,4 @@
-"""Driver contract: entry() compiles single-chip; dryrun_multichip runs on
+"""Entry points: entry() compiles on one device; dryrun_multichip runs on
 the virtual CPU mesh."""
 
 import pathlib
@@ -32,6 +32,37 @@ def test_entry_compiles_and_runs():
 
 @pytest.mark.parametrize("n", [8, 4])
 def test_dryrun_multichip(n):
-    if len(jax.devices()) < n:
+    """On CPU devices the sharded decode and the mesh step are
+    bit-identical to one device."""
+    devs = jax.devices("cpu")
+    if len(devs) < n:
         pytest.skip("not enough virtual devices")
-    graft.dryrun_multichip(n)
+    diffs = graft.dryrun_multichip(devices=devs[:n])
+    assert diffs == {"sharded_s16_vs_single": 0, "mesh_step_vs_single": 0.0}
+
+
+def test_dryrun_multichip_default_takes_cpu_devices():
+    """Without a device list the dry run takes n virtual CPU devices."""
+    diffs = graft.dryrun_multichip(2)
+    assert diffs["sharded_s16_vs_single"] == 0
+
+
+def test_dryrun_multichip_takes_given_sources():
+    """Given streams, the dry run decodes those (here two, so six of the
+    eight shards are empty)."""
+    from vorbispizza_tpu.testing.smoke_data import chain_members
+
+    srcs = chain_members()
+    diffs = graft.dryrun_multichip(devices=jax.devices("cpu")[:8], sources=srcs)
+    assert diffs == {"sharded_s16_vs_single": 0, "mesh_step_vs_single": 0.0}
+
+
+@pytest.mark.parametrize(
+    "part, diff", [("sharded_s16_diff", 1), ("mesh_step_diff", 2e-6)]
+)
+def test_dryrun_multichip_fails_past_bound(monkeypatch, part, diff):
+    """A sharded decode that differs from one device at all, or a mesh
+    step past the 1e-6 PCM budget, fails the dry run."""
+    monkeypatch.setattr(graft, part, lambda *a: diff)
+    with pytest.raises(AssertionError, match="differs from one device"):
+        graft.dryrun_multichip(devices=jax.devices("cpu")[:2])

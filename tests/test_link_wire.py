@@ -1,6 +1,5 @@
-"""Link-aware wire selection (VERDICT r4 weak #5 / config.s16_rice):
-the rice mode only pays on thin links, so "auto" resolves it from the
-measured d2h rate. Width-only packs must stay losslessly decodable by
+"""Link-aware wire selection (config.s16_rice): the rice mode only pays
+on thin links, so "auto" resolves it from the measured d2h rate. Width-only packs must stay losslessly decodable by
 the unchanged host unpack (a rice wire with zero rice blocks), and the
 resolution logic must pick rice below the threshold and width-only
 above it."""
@@ -57,16 +56,39 @@ def test_auto_resolution_follows_link_rate(monkeypatch):
 
     cfg = VorbisConfig.default
     monkeypatch.setattr(cfg, "s16_rice", "auto")
-    link.d2h_rate_estimate(force=30e6)  # tunnel-class link
-    assert BatchSynthesizer._resolve_rice() is True
-    link.d2h_rate_estimate(force=500e6)  # PCIe-class link
-    assert BatchSynthesizer._resolve_rice() is False
-    monkeypatch.setattr(cfg, "s16_rice", "on")
-    assert BatchSynthesizer._resolve_rice() is True
-    monkeypatch.setattr(cfg, "s16_rice", "off")
-    assert BatchSynthesizer._resolve_rice() is False
-    # restore the CPU-backend default for other tests in this worker
-    link.d2h_rate_estimate(force=float("inf"))
+    try:
+        link.d2h_rate_estimate(force=30e6)  # thin link
+        assert BatchSynthesizer._resolve_rice() is True
+        link.d2h_rate_estimate(force=500e6)  # PCIe-class link
+        assert BatchSynthesizer._resolve_rice() is False
+        monkeypatch.setattr(cfg, "s16_rice", "on")
+        assert BatchSynthesizer._resolve_rice() is True
+        monkeypatch.setattr(cfg, "s16_rice", "off")
+        assert BatchSynthesizer._resolve_rice() is False
+    finally:
+        # the next caller in this worker measures again (+inf on CPU)
+        link.reset()
+
+
+def test_failed_probe_raises_and_caches_nothing(monkeypatch):
+    """A link probe that fails must raise, not cache a guessed rate that
+    would pick the wire for the whole process."""
+    import jax
+
+    def no_transfer(*a, **k):
+        raise RuntimeError("transfer failed")
+
+    link.reset()
+    try:
+        monkeypatch.setattr(jax, "default_backend", lambda: "gpu")
+        monkeypatch.setattr(jax, "device_put", no_transfer)
+        with pytest.raises(RuntimeError, match="transfer failed"):
+            link.d2h_rate_estimate()
+        assert link._cached is None
+    finally:
+        monkeypatch.undo()
+        link.reset()
+    assert link.d2h_rate_estimate() == float("inf")  # CPU backend
 
 
 @pytest.mark.parametrize("mode", ["on", "off"])

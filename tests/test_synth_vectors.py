@@ -131,7 +131,7 @@ def test_multiplexed_floor0_and_5_1():
     """Grouped multiplexing whose interleaved logical streams include a
     FLOOR0 stream (hand-built LSP setup, testing/rawstream.py) and a 5.1
     stream (polar coupling + Residue2): the two hardest setup families
-    sharing one physical stream (VERDICT r3 #8). Each logical stream must
+    sharing one physical stream. Each logical stream must
     decode identically to its unmultiplexed original — floor0's solo
     oracle parity is pinned by test_rawstream, the 5.1 solo by
     test_multichannel_51, so original-equality here transfers those

@@ -1,6 +1,6 @@
-"""vorbispizza_tpu — a TPU-native Ogg Vorbis decode framework.
+"""vorbispizza_tpu — an Ogg Vorbis decode framework on an accelerator.
 
-Built from scratch in JAX/XLA/Pallas with the capability surface of
+Built from scratch in JAX/XLA with the capability surface of
 TechPizzaDev/VorbisPizza (see SURVEY.md). Host side: Ogg framing, packet
 assembly, setup parsing, Huffman/VQ entropy decode. Device side: batched
 floor synthesis, coupling inverse, IMDCT, windowed overlap-add.

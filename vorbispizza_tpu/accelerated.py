@@ -1,4 +1,4 @@
-"""TPU-accelerated StreamDecoder: the streaming read/seek surface served
+"""Device-accelerated StreamDecoder: the streaming read/seek surface served
 from a batch-decoded PCM buffer.
 
 Drop-in for decoder.StreamDecoder behind VorbisReader(accelerated=True):

@@ -2,7 +2,7 @@
 position/granule tracking, seek with preroll.
 
 Behavior parity with reference NVorbis/StreamDecoder.cs:18 — the scalar
-(host) decode engine. The TPU batch pipeline (models/pipeline.py) shares the
+(host) decode engine. The device batch pipeline (models/pipeline.py) shares the
 same front end (setup/*) but fuses the synthesis stages on device; this class
 is the streaming API and the correctness anchor.
 """

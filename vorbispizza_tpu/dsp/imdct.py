@@ -1,6 +1,6 @@
 """Inverse MDCT — scalar float64 reference (host, numpy).
 
-The device (TPU) version lives in ops/imdct.py; this module is the numerics
+The device version lives in ops/imdct.py; this module is the numerics
 anchor it is verified against. Replaces the reference's stb-derived 8-step
 pointer kernel (NVorbis/Mdct.cs:11) with the mathematical definition
 evaluated exactly:

@@ -1,7 +1,7 @@
 """Frame-batch compiler: turn a logical Vorbis stream into dense, bucketed
-tensors for the TPU synthesis pipeline (models/pipeline.py).
+tensors for the device synthesis pipeline (models/pipeline.py).
 
-This is the "irregular -> dense" pass of the TPU-first design (SURVEY.md §7):
+This is the "irregular -> dense" pass of the accelerator design (SURVEY.md §7):
 
   pass 1 (plan)    — walk every packet, read only the mode header bits
                      (the same trick the reference uses to measure packets,

@@ -43,8 +43,7 @@ def _synthesizer_for(setup, channels: int) -> BatchSynthesizer:
     setup that flows through registers with the synthesizer (buckets name
     their setup via key.sid), so heterogeneous corpora share ONE
     synthesizer and its jitted-program cache per channel count — retracing
-    per decode_corpus call costs seconds per program load on a remote
-    accelerator, and cross-setup merged chunks need one synthesizer that
+    per decode_corpus call costs seconds per program, and cross-setup merged chunks need one synthesizer that
     knows every member setup."""
     with _SYNTH_LOCK:
         synth = _SYNTH_CACHE.get(channels)
@@ -261,6 +260,54 @@ def _scalar_fallback(source, output: str, clip_samples: bool):
     return pcm
 
 
+class _ChunkAccumulator:
+    """Groups streams into merged chunks as their front ends arrive.
+
+    Chunks group by CHANNEL COUNT only: buckets carry their setup identity
+    (key.sid), so streams of different setups merge into one chunk / one
+    fused program (heterogeneous corpora would otherwise fragment into one
+    program family and one undersized chunk sequence per encoder setting).
+    A chunk closes once its residue cost reaches ``max_batch_bytes``."""
+
+    def __init__(self, max_batch_bytes: int):
+        self.max_batch_bytes = max_batch_bytes
+        self._acc: dict = {}  # channels -> [indices, residue_bytes]
+
+    def add(self, i: int, front) -> list | None:
+        """Add stream ``i``; returns the chunk it closes (sorted indices)."""
+        rec = self._acc.setdefault(front[1], [[], 0])
+        rec[0].append(i)
+        rec[1] += sum(b.batch_cost for b in front[3])
+        if rec[1] < self.max_batch_bytes:
+            return None
+        self._acc[front[1]] = [[], 0]
+        return sorted(rec[0])
+
+    def rest(self) -> list:
+        """The chunks still open."""
+        return [sorted(idxs) for idxs, _ in self._acc.values() if idxs]
+
+
+def plan_chunks(sources, max_batch_bytes: int | None = None) -> list:
+    """Indices of ``sources`` grouped into the merged chunks that
+    ``decode_corpus`` dispatches for them, in dispatch order (streams the
+    batch planner rejects belong to none)."""
+    from ..config import VorbisConfig
+
+    if max_batch_bytes is None:
+        max_batch_bytes = VorbisConfig.default.corpus_batch_bytes
+    acc = _ChunkAccumulator(max_batch_bytes)
+    chunks = []
+    for i, src in enumerate(sources):
+        try:
+            chunk = acc.add(i, _front_end(src))
+        except BatchUnsupported:
+            continue
+        if chunk is not None:
+            chunks.append(chunk)
+    return chunks + acc.rest()
+
+
 def decode_corpus(
     sources,
     *,
@@ -289,8 +336,8 @@ def decode_corpus(
                  ``clip_samples``)
       "s16"    — numpy int16 [C, samples] on host (device-side quantize,
                  libvorbisfile ov_read-compatible; halves the transfer)
-      "device" — leave PCM on device (jax f32 arrays in HBM) for
-                 downstream TPU consumers (feature extraction, ASR, ...)
+      "device" — leave PCM on device (jax f32 arrays in device memory)
+                 for downstream consumers (feature extraction, ASR, ...)
 
     ``batched``: merge streams sharing a setup config into fused device
     executions (merge_streams) — minimizes per-call accelerator latency.
@@ -387,10 +434,9 @@ def decode_corpus(
                         # the LOCK is taken outside the stage: pulls
                         # serialize across collector threads, so with
                         # lock-wait excluded the stage sums to the true
-                        # link occupancy (bench derives the per-rep
-                        # transfer ceiling from it); wrapped the other
-                        # way, three waiting threads count the same
-                        # seconds three times (measured fraction 2.1)
+                        # link occupancy; wrapped the other way, three
+                        # waiting threads count the same seconds three
+                        # times
                         with _pull_lock, t.stage("collect_pull"):
                             t.mark(f"c{cid}.pull0")
                             # the first page carries [nbytes][widx] +
@@ -518,7 +564,7 @@ def decode_corpus(
     # remaining front ends. A small collector pool pulls + unpacks each
     # chunk's PCM as soon as its execution drains, so device->host bytes
     # and host unpack ride BEHIND later chunks' execution instead of
-    # serializing at the end (per-pull latency on remote links makes the
+    # serializing at the end (per-pull latency makes the
     # serial version cost far more than its bytes).
     pending: list = []
     n_dispatched = 0
@@ -526,8 +572,8 @@ def decode_corpus(
     # merge/prepare/dispatch run on ONE dedicated thread, in submission
     # order (chunk composition stays deterministic): the main loop keeps
     # consuming front-end futures while chunk k's prepare blocks on
-    # device_put staging over a high-latency link — without this, every
-    # chunk's h2d serializes against the remaining front ends
+    # device_put staging — without this, every chunk's h2d serializes
+    # against the remaining front ends
     dispatch_pool = cf.ThreadPoolExecutor(max_workers=1)
     dispatch_futs: list = []
 
@@ -586,23 +632,20 @@ def decode_corpus(
                 # launch the wire's first page now, sized to cover the
                 # WHOLE predicted wire: its async copy streams behind
                 # this chunk's execution, so by collect time the data has
-                # usually LANDED and the pull costs ~1 ms instead of a
-                # header round trip + a remainder round trip whose async
-                # copy can only launch at collect time (measured
-                # 2026-08-19, tools/pull_anatomy.py: hot corpus-shaped
-                # pull 150-220 ms vs 1.2 ms once the copy has landed).
+                # usually LANDED, instead of a header round trip + a
+                # remainder round trip whose async copy can only launch
+                # at collect time.
                 # The payload size is content-dependent and only known on
                 # device, so the hint is a learned per-synthesizer
                 # payload/raw ratio (EWMA, updated in finish) with +2%
                 # margin. The margin is deliberately THIN: an undershoot
-                # falls back to the exact-sized 256 KB-quantized
+                # falls back to the exact-sized _PAGE_QUANTUM-quantized
                 # remainder page (latency the pipeline overlaps), while
                 # overshoot bytes cross the link for nothing — a +15%
-                # margin measured ~3 MB of padding per 480 s corpus
-                # (d2h 18.6 vs ~15.6 MB payload), and on this link bytes,
-                # not round trips, are the budget (overlap hides latency,
-                # not bytes). The honest d2h counter (pull_wire
-                # moved_out) reports every page byte either way.
+                # margin came to ~3 MB of padding per 480 s corpus
+                # (d2h 18.6 vs ~15.6 MB payload). The honest d2h counter
+                # (pull_wire moved_out) reports every page byte either
+                # way.
                 fmt_nbt = merged_out[2]
                 _hdr = wire_header_bytes(synth.channels)
                 _ratio = getattr(synth, "_wire_ratio", None)
@@ -649,7 +692,7 @@ def decode_corpus(
         pending.append((chunk, pcm_lengths, merged_out, fut))
 
     fronts_by_idx: dict = {}
-    acc: dict = {}  # channels -> [indices, residue_bytes]
+    acc = _ChunkAccumulator(max_batch_bytes)
     with t.stage("front_end"):
         with cf.ThreadPoolExecutor(max_workers=n_workers) as pool:
             futs = [pool.submit(front_end_or_none, src) for src in sources]
@@ -665,27 +708,15 @@ def decode_corpus(
                     outs[i] = scalar_or_failed(i)
                     continue
                 fronts_by_idx[i] = front
-                # chunks group by CHANNEL COUNT only: buckets carry their
-                # setup identity (key.sid), so streams of different setups
-                # merge into one chunk / one fused program (heterogeneous
-                # corpora would otherwise fragment into one program family
-                # and one undersized chunk sequence per encoder setting)
-                key = front[1]
-                rec = acc.setdefault(key, [[], 0])
-                rec[0].append(i)
-                rec[1] += sum(b.batch_cost for b in front[3])
-                if rec[1] >= max_batch_bytes:
+                chunk = acc.add(i, front)
+                if chunk is not None:
                     dispatch_futs.append(
-                        dispatch_pool.submit(
-                            dispatch, sorted(rec[0]), fronts_by_idx
-                        )
+                        dispatch_pool.submit(dispatch, chunk, fronts_by_idx)
                     )
-                    acc[key] = [[], 0]
-    for key, (idxs, nbytes) in acc.items():
-        if idxs:
-            dispatch_futs.append(
-                dispatch_pool.submit(dispatch, sorted(idxs), fronts_by_idx)
-            )
+    for chunk in acc.rest():
+        dispatch_futs.append(
+            dispatch_pool.submit(dispatch, chunk, fronts_by_idx)
+        )
 
     with t.stage("collect"):
         try:

@@ -2,66 +2,117 @@
 
 Counterpart of the reference's SIMD hot paths (Codebook.DecodeScalar,
 Huffman prefix table, Floor1.Unpack, Residue0.Decode). The shared library
-is compiled lazily from frontend.cpp with g++ and cached next to the
-source; decode_packets() fans packets out across threads and fills dense
-numpy tensors for the TPU synthesis pipeline.
+is compiled lazily from frontend.cpp with g++ into ``build/``, under a
+name keyed on the source, the compiler flags and the host CPU, so a
+checkout moved to another machine builds its own library instead of
+loading one compiled for a different CPU. decode_packets() fans packets
+out across threads and fills dense numpy tensors for the device pipeline.
 
-Falls back cleanly: callers check ``available()`` and use the pure-Python
-path when the toolchain or build is missing.
+Callers check ``available()`` and use the pure-Python path when the
+toolchain or build is missing; the first such check warns with the
+build error.
 """
 
 from __future__ import annotations
 
 import ctypes as C
+import hashlib
 import os
+import platform
 import subprocess
 import threading
+import time
+import warnings
 
 import numpy as np
 
 _DIR = os.path.dirname(os.path.abspath(__file__))
 _SRC = os.path.join(_DIR, "frontend.cpp")
-_LIB = os.path.join(_DIR, "_frontend.so")
+_BUILD_DIR = os.path.join(_DIR, "build")
+_FLAGS = (
+    "-O3", "-march=native", "-std=c++17", "-shared", "-fPIC", "-pthread",
+)
 
 _lock = threading.Lock()
 _lib = None
+_lib_path: str | None = None
+_build_s: float | None = None
 _build_error: str | None = None
 
 
-def _build() -> str | None:
-    """Compile frontend.cpp -> _frontend.so; returns error text or None."""
-    cmd = [
-        "g++", "-O3", "-march=native", "-std=c++17", "-shared", "-fPIC",
-        "-pthread", "-o", _LIB + ".tmp", _SRC,
-    ]
+def host_cpu() -> str:
+    """What ``-march=native`` compiles for: the architecture plus the CPU
+    model and feature lines of /proc/cpuinfo (Linux; elsewhere the
+    architecture and processor string)."""
+    try:
+        with open("/proc/cpuinfo") as f:
+            lines = f.read().splitlines()
+    except OSError:
+        return f"{platform.machine()}\n{platform.processor()}"
+    keep = sorted(
+        {
+            ln.strip()
+            for ln in lines
+            if ln.startswith(("model name", "flags", "Features", "CPU part"))
+        }
+    )
+    return "\n".join([platform.machine(), *keep])
+
+
+def build_key(source: bytes, flags, cpu: str) -> str:
+    """Name of the library built from ``source`` with ``flags`` on
+    ``cpu``: any change to one of the three builds a new library."""
+    h = hashlib.sha256(source)
+    for part in (*flags, cpu):
+        h.update(b"\0" + part.encode())
+    return h.hexdigest()[:20]
+
+
+def _build(path: str) -> str | None:
+    """Compile frontend.cpp -> ``path``; returns error text or None."""
+    os.makedirs(_BUILD_DIR, exist_ok=True)
+    tmp = f"{path}.{os.getpid()}.tmp"  # concurrent builders never share it
+    cmd = ["g++", *_FLAGS, "-o", tmp, _SRC]
     try:
         proc = subprocess.run(cmd, capture_output=True, text=True, timeout=300)
     except (OSError, subprocess.TimeoutExpired) as e:  # no toolchain
         return str(e)
     if proc.returncode != 0:
         return proc.stderr[-2000:]
-    os.replace(_LIB + ".tmp", _LIB)
+    os.replace(tmp, path)
     return None
 
 
 def _load():
-    global _lib, _build_error
+    global _lib, _lib_path, _build_s, _build_error
     with _lock:
         if _lib is not None or _build_error is not None:
             return _lib
-        need_build = (
-            not os.path.exists(_LIB)
-            or os.path.getmtime(_LIB) < os.path.getmtime(_SRC)
-        )
-        if need_build:
-            _build_error = _build()
+        with open(_SRC, "rb") as f:
+            key = build_key(f.read(), _FLAGS, host_cpu())
+        path = os.path.join(_BUILD_DIR, f"_frontend-{key}.so")
+        if not os.path.exists(path):
+            t0 = time.perf_counter()
+            _build_error = _build(path)
             if _build_error is not None:
+                warnings.warn(
+                    "native front end unavailable, decoding with the "
+                    f"Python front end: {_build_error}",
+                    RuntimeWarning,
+                    stacklevel=3,
+                )
                 return None
+            _build_s = time.perf_counter() - t0
         try:
-            lib = C.CDLL(_LIB)
+            lib = C.CDLL(path)
         except OSError as e:
             _build_error = str(e)
+            warnings.warn(
+                f"native front end failed to load: {e}", RuntimeWarning,
+                stacklevel=3,
+            )
             return None
+        _lib_path = path
         lib.vp_scan_ogg.restype = C.c_int64
         lib.vp_scan_ogg.argtypes = [
             C.c_char_p, C.c_int64, C.c_int64,
@@ -124,6 +175,13 @@ def available() -> bool:
 def build_error() -> str | None:
     _load()
     return _build_error
+
+
+def build_info() -> dict:
+    """``path`` of the loaded library and ``build_s``, the seconds this
+    process spent compiling it (None when it was already built)."""
+    _load()
+    return {"path": _lib_path, "build_s": _build_s}
 
 
 def _ptr(a, ctype):

@@ -7,7 +7,7 @@
 // (NVorbis/Codebook.cs:300, Huffman.cs:24, Floor1.cs:162, Residue0.cs:117).
 // Packets are independent after header parse, so decode fans out across
 // threads; outputs land in caller-allocated dense tensors ready for the
-// TPU synthesis pipeline.
+// device synthesis pipeline.
 //
 // Setup config arrives as one flat binary blob (native/serialize.py writes
 // it, _parse_setup below reads it; all fields little-endian, arrays 4-byte
@@ -836,8 +836,8 @@ void decode_one(const Setup& s, const uint8_t* data, int64_t len, int64_t pkt,
 
 // ------------------------------------------------ dpack unpack SIMD kernel
 //
-// AVX-512 path for vp_unpack_pcm's per-block inner loop (the headline
-// corpus is host-CPU-bound on single-vCPU TPU hosts; this loop is the
+// AVX-512 path for vp_unpack_pcm's per-block inner loop (on a host with
+// few cores the s16 corpus decode is host-CPU-bound, and this loop is the
 // largest term). 16-lane field extraction (gather + variable shift),
 // SIMD zigzag, and carry-propagated 16-lane inclusive scans for the
 // d3 -> d2 -> d1 -> sample chains. All arithmetic is two's-complement

@@ -13,7 +13,7 @@ work the reference's FillPageEndGranuleCache does lazily) then bisects in
 memory. The table is re-anchored to page granule positions in a backward
 pass, which reproduces the reference's end-trim and initial-offset handling
 (StreamDecoder.cs:657-666, PacketProvider.cs:203-307). The same table is the
-frame table consumed by the TPU batch front end.
+frame table consumed by the batch front end.
 """
 
 from __future__ import annotations

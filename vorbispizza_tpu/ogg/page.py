@@ -7,7 +7,7 @@ Ogg/PageHeader.cs:8 (field layout). Architecture differs: we scan with
 ``bytes.find`` over a growing buffer (C-speed) instead of a byte-at-a-time
 state machine, and pages are immutable Python objects instead of pooled
 ref-counted buffers (PageData.cs / RefCounted.cs are .NET-GC artifacts with
-no TPU-framework analog).
+no analog in this framework).
 """
 
 from __future__ import annotations

@@ -55,9 +55,10 @@ def floor1_curves(
     )
     hi = jnp.minimum(hi, P)  # keep the "none" sentinel matmul-exact
 
-    # Gather-free expansion: TPU dynamic gathers are slow, so every
-    # bin-indexed lookup becomes a one-hot contraction on the MXU. All
-    # values involved are small integers — exact in float32.
+    # Gather-free expansion: every bin-indexed lookup is a one-hot
+    # contraction (chosen where dynamic gathers were slow; on the GPU
+    # plain gathers are a measured decision left to a later change). All
+    # values involved are small integers — exact in float32 at HIGHEST.
     sel = jnp.asarray(
         (base_p[:, None] == np.arange(P)[None, :]).astype(np.float32)
     )  # [half, P] static: bin -> base post

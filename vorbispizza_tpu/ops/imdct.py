@@ -1,17 +1,19 @@
-"""Batched IMDCT + window for TPU (JAX/XLA, MXU matmul formulation).
+"""Batched IMDCT + window (JAX/XLA, matmul formulation).
 
 Replaces the reference's stb-derived 8-step pointer IMDCT
 (NVorbis/Mdct.cs:11) with a DCT-IV-by-matmul formulation: the whole batch of
 spectra for one blocksize bucket is a single [B*C, half] @ [half, half]
-matmul on the MXU, followed by the standard IMDCT reflection/extension
+matmul, followed by the standard IMDCT reflection/extension
 (pure slicing, fused by XLA into the window multiply).
 
     y[j] = sum_{k<n/2} X[k] cos(2*pi/n (j + 0.5 + n/4)(k + 0.5))
          = +-DCT-IV_{n/2}(X)[perm(j)]
 
-Numerics: float32 with Precision.HIGHEST (6-pass bf16 decomposition on TPU,
-f32-equivalent accumulation) to stay inside the 1e-6 budget vs the float64
-scalar anchor (dsp/imdct.py).
+Numerics: float32 with Precision.HIGHEST (true f32 products and
+accumulation — never TF32 on the GPU) to stay inside the 1e-6 budget vs
+the float64 scalar anchor (dsp/imdct.py). On the GPU this is an O(n^2)
+f32 GEMM outside the tensor cores; an FFT formulation is a measured
+decision left to a later change.
 """
 
 from __future__ import annotations

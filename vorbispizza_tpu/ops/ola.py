@@ -4,9 +4,8 @@ The reference laps adjacent frames serially
 (NVorbis/StreamDecoder.cs:764 OverlapBuffers). Frame supports tile the
 output contiguously and at most TWO windowed frames cover any PCM sample
 (the lapping pair; long->short transitions meet exactly at the boundary), so
-instead of scatter-adding frames into an accumulator — XLA scatters are
-slow on both CPU and TPU — every output sample *gathers* its one or two
-contributions:
+instead of scatter-adding frames into an accumulator every output sample
+*gathers* its one or two contributions:
 
     pcm[i] = flat[a_idx[i]] + (b_valid[i] ? flat[b_idx[i]] : 0)
 
@@ -35,24 +34,22 @@ class OlaUnsupported(BatchUnsupported):
 
 #: phase-decomposition width of block_assemble: W-sample output blocks are
 #: affine slices of flat between events, so the bulk gather runs at 1/W of
-#: the per-sample index count (row takes of [Tf/W, W]). On-chip sweep
-#: (v5e, 2026-08-18): 8 is this formulation's optimum (its W-way phase
-#: select is O(L*W)); block_assemble_wide below supersedes it in
-#: production.
+#: the per-sample index count (row takes of [Tf/W, W]). Its W-way phase
+#: select is O(L*W), so it wants a small W; block_assemble_wide below
+#: supersedes it in production.
 PHASE_W = 8
 
-#: production width of block_assemble_wide: full 128-lane rows. On-chip
-#: sweep (v5e, 2026-08-18, 8x15 s stereo merged chunk, exec-only):
-#: classic W=8 76.4 ms; wide W=8/32/64/128/256 = 62.6/66.8/41.1/33.0/36.8
-#: ms -> 3634x realtime at W=128 (2.3x over classic W=8).
+#: production width of block_assemble_wide. Chosen by a sweep on the
+#: earlier accelerator and not re-measured on the GPU
+#: (vorbispizza_tpu/tools/olasweep.py re-sweeps it).
 WIDE_W = 128
 
 
 def expand_assemble(flat, evs, L):
     """Per-sample reference formulation (tests / CPU fallback): expand the
     index/validity arrays from events with unit scatters + full-length
-    cumsums, then gather_assemble. Two 5M-index scalar takes cost 45-66 ms
-    each on v5e — block_assemble is the production path."""
+    cumsums, then gather_assemble. block_assemble_wide is the production
+    path."""
     ev_j, ev_da, ev_db, ev_va, ev_vb = evs
     ones = jnp.ones(L, jnp.int32)
     zero = jnp.zeros(L, jnp.int32)
@@ -122,9 +119,8 @@ def block_assemble(flat, evs, L, W: int | None = None):
     W-sample output block is an affine slice of ``flat``. The bulk of the
     output is built with TWO row-takes per side over flat viewed as
     [Tf/W, W] rows (consecutive rows r, r+1 at the block's start index,
-    lane-selected by the start's phase) — 1/W the index count of the
-    per-sample formulation (expand_assemble), whose two 5M-index takes
-    cost 45-66 ms each on v5e.
+    selected by the start's phase) — 1/W the index count of the
+    per-sample formulation (expand_assemble).
 
     Samples in blocks that contain events are REPLACED, not corrected:
     event k covers [o_k, o_next) within its block, where o_next is the
@@ -142,11 +138,9 @@ def block_assemble(flat, evs, L, W: int | None = None):
     combined deltas.
 
     A third formulation — per-block contiguous dynamic slices — measured
-    3.7x SLOWER than even expand_assemble (310 ms vs 82 ms per 120 s
-    chunk): XLA lowers unaligned lane-dim slice gathers to per-slice code,
-    and Mosaic cannot DMA dynamically-unaligned lane slices either (the
-    same reason the since-deleted Pallas hop kernel could not serve these
-    shapes).
+    slower than even expand_assemble on the earlier accelerator, where
+    XLA lowered unaligned slice gathers to per-slice code; not
+    re-measured on the GPU.
 
     evs: (ev_j, ev_da, ev_db, ev_va, ev_vb) i32 arrays, sorted by ev_j;
     padding events carry j = L, whose columns >= L every scatter drops.
@@ -198,9 +192,8 @@ def _row_phase_take(flat_r, start, W):
 
     Two consecutive row takes of the [C, TfR, W] row view + a barrel-shift
     lane rotation (log2(W) masked rolls instead of block_assemble's W-way
-    where chain): at W=128 the row view fills all 128 lanes and the roll
-    count is 7, so the per-window cost is O(log W) selects over full
-    vectors instead of O(W) selects over W-lane rows. start may be
+    where chain): at W=128 the roll count is 7, so the per-window cost is
+    O(log W) selects over W-wide rows instead of O(W). start may be
     negative (invalid regions): arithmetic >> floors, & gives the phase,
     and the OOB row fill returns zeros exactly like a per-sample
     mode="fill" take."""
@@ -221,8 +214,8 @@ def block_assemble_wide(flat, evs, L, W: int | None = None):
     """Row-granularity OLA assembly, bit-identical to expand_assemble /
     block_assemble (same events contract, any power-of-two W dividing L).
 
-    Differences vs block_assemble, all aimed at large W (=full 128-lane
-    fill): (1) the bulk phase selection is the barrel shifter of
+    Differences vs block_assemble, all aimed at large W (such as
+    WIDE_W): (1) the bulk phase selection is the barrel shifter of
     _row_phase_take (O(log W) masked rolls, not W wheres); (2) the event
     windows f_cur are ALSO row takes + barrel shift (block_assemble
     gathers Ep*W per-sample indices — at W=128 that alone rivals the

@@ -24,7 +24,7 @@ grouping), ShardMismatch tells the caller to fall back to per-device
 dispatch.
 
 The reference has no analog (SURVEY.md §2.9: no distributed runtime of any
-kind); this is the framework's TPU-native scale-out surface.
+kind); this is the framework's multi-device scale-out surface.
 """
 
 from __future__ import annotations
@@ -279,8 +279,8 @@ def decode_corpus_sharded(sources, mesh, *, output: str = "s16", on_error: str =
     ``output``:
       "s16"    — host int16 [C, samples] (dpack wire, device quantize)
       "f32"    — host float32 [C, samples], clipped
-      "device" — per-stream jax f32 views into each shard's HBM-resident
-                 output (the TPU-native deployment shape, matching
+      "device" — per-stream jax f32 views into each shard's device-resident
+                 output (matching
                  single-device decode_corpus(output="device"): PCM stays
                  on the device that decoded it for downstream consumers —
                  feature extraction, ASR, ...). Unclipped, like the

@@ -5,7 +5,7 @@ sequence parallelism over the frame axis of each stream. All synthesis
 stages (floor render, coupling inverse, IMDCT, window) are frame-local, so
 they shard trivially; the only cross-shard dependency is overlap-add, where
 the first output hop of a shard laps with the LAST frame of the left
-neighbor — one frame of halo moved with jax.lax.ppermute over ICI.
+neighbor — one frame of halo moved with jax.lax.ppermute.
 
 A psum over both axes folds the clip indicator into a global "has_clipped"
 scalar (the analog of the reference's StreamDecoder.HasClipped), exercising
@@ -78,7 +78,7 @@ def sharded_decode_step(
     half = n // 2
     P_posts = len(xs)
     # kept as numpy: an eager jnp.asarray here would device_put onto the
-    # DEFAULT backend (e.g. an ambient TPU) even when the mesh is CPU-only;
+    # DEFAULT backend (e.g. a GPU) even when the mesh is CPU-only;
     # converting inside the traced function bakes it in as a constant on
     # whatever devices the jit actually targets.
     window_np = np.asarray(window, dtype=np.float32)

@@ -27,7 +27,7 @@ class VorbisReader:
         ``config``: a VorbisConfig supplying defaults (reference
         VorbisConfig.Default analog); explicit keyword args override it.
 
-        ``accelerated``: serve reads/seeks from the TPU batch pipeline
+        ``accelerated``: serve reads/seeks from the device batch pipeline
         (accelerated.AcceleratedStreamDecoder) instead of the scalar
         streaming decoder."""
         from .config import VorbisConfig

@@ -4,7 +4,7 @@ Config parse + per-packet unpack + host-side (numpy) curve synthesis.
 Behavior parity with reference NVorbis/Floor0.cs:9 and NVorbis/Floor1.cs:13;
 implemented from Vorbis I spec sections 6 (floor0) and 7 (floor1).
 
-The per-packet unpack results are plain dataclasses so the TPU batch front
+The per-packet unpack results are plain dataclasses so the batch front
 end (frames.py) can collect them into dense tensors; synthesis here is the
 scalar correctness anchor that ops/ kernels are verified against.
 """

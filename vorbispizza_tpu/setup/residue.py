@@ -5,7 +5,7 @@ parse :25-115, partition loop Decode:117-206), Residue1.cs:6, Residue2.cs:6.
 Implemented from Vorbis I spec section 8.6.
 
 Decode emits dense per-channel float spectra — the "irregular -> dense"
-boundary of the TPU design (SURVEY.md section 7): everything downstream of
+boundary of the device design (SURVEY.md section 7): everything downstream of
 this function is batched device math.
 """
 

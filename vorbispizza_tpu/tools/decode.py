@@ -5,7 +5,7 @@
         [--out DIR] file.ogg [file2.ogg ...]
 
 --scalar uses the streaming float64 decoder (decoder.py); --batch (default)
-uses the TPU batch pipeline. Output is IEEE-float WAV (or PCM16 with
+uses the device batch pipeline. Output is IEEE-float WAV (or PCM16 with
 --s16), one file per input, plus a one-line decode report per file.
 """
 

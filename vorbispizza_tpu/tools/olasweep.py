@@ -1,10 +1,7 @@
-"""On-chip sweep of block_assemble's phase width W, plus the Pallas
-per-hop kernel vs the block path on its one eligible shape (cut-free,
-128-aligned uniform-blocksize streams) — the data for VERDICT r2 item 5
-(keep or delete the Pallas OLA).
+"""On-chip sweep of the OLA assembly's phase width W (ops/ola.py).
 
 Usage: python -m vorbispizza_tpu.tools.olasweep [n_files] [secs] [channels]
-(channels=6 sweeps the 5.1 lane-fill case — VERDICT r3 #3)
+(channels=6 sweeps the 5.1 case)
 """
 
 from __future__ import annotations
@@ -88,14 +85,6 @@ def run_sweep(
                 )
             finally:
                 pl.block_assemble_wide = saved
-
-    # The retired Pallas per-hop kernel was measured here 2026-08-18
-    # before deletion: on its one eligible shape class (cut-free,
-    # 128-aligned uniform blocksizes) it ran 5.38 vs 7.23 ms (long
-    # pattern, win) and 3.86 vs 3.26 ms (short pattern, loss) against
-    # the block path — a marginal, mixed result on a class production
-    # plans (granule-trimmed / merged) never hit, so the kernel and its
-    # config/bench surface were removed (VERDICT r3 weak #3).
 
 
 if __name__ == "__main__":
